@@ -13,9 +13,6 @@ import sys
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import numpy as np
 import jax.numpy as jnp
@@ -26,7 +23,7 @@ def main():
     port, pid, prefix, k, out_json = (sys.argv[1], int(sys.argv[2]),
                                       sys.argv[3], int(sys.argv[4]),
                                       sys.argv[5])
-    from mendeliht_tpu.parallel import multihost as mh
+    from mendeliht.parallel import multihost as mh
 
     mh.initialize(coordinator_address=f"127.0.0.1:{port}",
                   num_processes=2, process_id=pid)
@@ -35,9 +32,9 @@ def main():
 
     geno, p_true = mh.load_bed_shard(prefix, mesh)
 
-    from mendeliht_tpu.parallel.sharded_ops import ShardedPackedOp
-    from mendeliht_tpu.models.fit import build_fit
-    from mendeliht_tpu.models.univariate import fit_fused_sparse
+    from mendeliht.parallel.sharded_ops import ShardedPackedOp
+    from mendeliht.models.fit import build_fit
+    from mendeliht.models.univariate import fit_fused_sparse
 
     op = ShardedPackedOp(geno, mesh)
     y = np.loadtxt(prefix + ".phen")

@@ -1,11 +1,11 @@
 """Checkpoint/resume oracle: a segmented + checkpointed CV must equal the
-single-shot CV exactly (the TPU-build's addition over the reference, which
+single-shot CV exactly (this framework's addition over the reference, which
 stages long runs manually — SURVEY.md §5)."""
 
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 
 @pytest.fixture(scope="module")
@@ -34,7 +34,7 @@ def test_resume_from_checkpoint(problem, tmp_path):
     uninterrupted run."""
     x, y, folds = problem
     ckdir = str(tmp_path / "ck2")
-    from mendeliht_tpu.utils import checkpoint as ckpt
+    from mendeliht.utils import checkpoint as ckpt
 
     # interrupted run: stop after the first segment by monkey-limiting steps
     m.cv_iht(y, x, path=[2, 4, 6], q=3, folds=folds, d=m.Normal(),

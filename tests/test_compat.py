@@ -5,7 +5,7 @@ initialize_beta / naive_impute / cv_iht_distribute_fold as pure functions."""
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 
 def test_loglikelihood_matches_normal_logpdf():
@@ -104,7 +104,7 @@ def test_cv_iht_distribute_fold_files(tmp_path, small_sim):
 
 def test_naive_impute_roundtrip():
     rng = np.random.default_rng(107)
-    import mendeliht_tpu as m
+    import mendeliht as m
     codes = rng.choice([0, 1, 2, 3], size=(60, 40),
                        p=[0.4, 0.1, 0.3, 0.2]).astype(np.uint8)
     x = m.PackedGenotypes.from_codes(codes)

@@ -5,8 +5,8 @@ best-k sanity check on a well-separated simulation)."""
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
-from mendeliht_tpu.models.cv import allocate_fold_and_k, meanloss
+import mendeliht as m
+from mendeliht.models.cv import allocate_fold_and_k, meanloss
 
 
 def test_allocate_fold_and_k():

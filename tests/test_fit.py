@@ -7,7 +7,7 @@ we assert our solver reproduces the same support and coefficients."""
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 # reference data/iht.summary.txt (k=8 fit with intercept + sex covariates)
 REF_POSITIONS = [3136, 3137, 4246, 4717, 6290, 7755, 8375, 9415]
@@ -182,10 +182,10 @@ class TestDebiasConvergence:
         src/utilities.jl:1014-1020)."""
         import dataclasses
         import jax.numpy as jnp
-        from mendeliht_tpu.models.fit import build_fit
-        from mendeliht_tpu.models.initialize import init_state
-        from mendeliht_tpu.models.univariate import run_iht
-        from mendeliht_tpu.models.debias import debias_refit
+        from mendeliht.models.fit import build_fit
+        from mendeliht.models.initialize import init_state
+        from mendeliht.models.univariate import run_iht
+        from mendeliht.models.debias import debias_refit
 
         x, _ = m.simulate_random_snparray(None, 300, 400, rng=rng)
         y, _, _ = m.simulate_random_response(

@@ -6,7 +6,7 @@ nuisance estimator end-to-end, and LD-correlated simulation properties
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 
 def test_gamma_fit():
@@ -106,7 +106,7 @@ class TestBuildCache:
         """build_fit's problem cache returns the SAME built tuple for a
         repeated identical problem, and must miss when y changes content or
         the genotype object is different (identity check, models/fit.py)."""
-        from mendeliht_tpu.models.fit import build_fit
+        from mendeliht.models.fit import build_fit
 
         x, _ = m.simulate_random_snparray(None, 120, 200, rng=rng)
         y, _, _ = m.simulate_random_response(x, 3, m.Normal(), rng=rng)

@@ -4,10 +4,10 @@ here we test pack/unpack/stat/standardization invariants directly)."""
 import numpy as np
 import pytest
 
-from mendeliht_tpu.genotype.snparray import (
+from mendeliht.genotype.snparray import (
     PackedGenotypes, pack_codes, unpack_codes)
-from mendeliht_tpu.genotype.plink import read_plink, write_plink_bed
-from mendeliht_tpu.genotype import maf, grm
+from mendeliht.genotype.plink import read_plink, write_plink_bed
+from mendeliht.genotype import maf, grm
 
 
 def test_pack_unpack_roundtrip(rng):
@@ -68,8 +68,8 @@ def test_maf_and_grm(rng):
 
 
 def test_grm_device_matches_host(rng):
-    """On-device blocked GRM (decode-gather + MXU syrk, round-4 VERDICT weak
-    #7) == the exact f64 host loop, including missing imputation and a
+    """On-device blocked GRM (decode-gather + syrk-shaped matmul) == the
+    exact f64 host loop, including missing imputation and a
     ragged final chunk."""
     codes = rng.choice(np.arange(4, dtype=np.uint8), size=(70, 53),
                        p=[0.4, 0.1, 0.3, 0.2])
@@ -83,7 +83,7 @@ def test_grm_device_matches_host(rng):
 def test_make_snparray(tmp_path, rng):
     """make_snparray packs {0,1,2} values (nan = missing) and optionally
     writes a .bed (reference export, src/MendelIHT.jl:31)."""
-    from mendeliht_tpu import make_snparray
+    from mendeliht import make_snparray
     vals = rng.choice([0.0, 1.0, 2.0, np.nan], size=(40, 25),
                       p=[0.4, 0.3, 0.2, 0.1])
     bed = str(tmp_path / "mk")
@@ -94,7 +94,7 @@ def test_make_snparray(tmp_path, rng):
     dec = np.vectorize(lambda c: vmap.get(c, np.nan))(codes).T
     np.testing.assert_array_equal(np.isnan(dec), np.isnan(vals))
     np.testing.assert_array_equal(dec[~np.isnan(vals)], vals[~np.isnan(vals)])
-    from mendeliht_tpu import make_bim_fam_files
+    from mendeliht import make_bim_fam_files
     make_bim_fam_files(g, np.zeros(g.n), bed)
     g2 = read_plink(bed)
     assert np.array_equal(np.asarray(g2.snparray.packed), np.asarray(g.packed))
@@ -110,7 +110,7 @@ def test_bgen_zstd_layout2(tmp_path):
     import pytest
 
     zstd = pytest.importorskip("zstandard")
-    from mendeliht_tpu.genotype.bgen import read_bgen
+    from mendeliht.genotype.bgen import read_bgen
 
     ns = 4
     # per-variant stored probs (p_refref, p_refalt) at nbits=8:
@@ -166,7 +166,7 @@ def test_bgen_phased_layout2(tmp_path):
     import struct
     import numpy as np
 
-    from mendeliht_tpu.genotype.bgen import read_bgen
+    from mendeliht.genotype.bgen import read_bgen
 
     ns = 3
     # haplotype P(REF): s0 (1,1) -> d=0; s1 (1,0) -> d=1; s2 (0,0) -> d=2
@@ -199,7 +199,7 @@ def test_bgen_phased_layout2(tmp_path):
 def test_merge_plink(tmp_path, rng):
     """merge_plink concatenates per-chromosome trios with identical samples
     (reference: SnpArrays.merge_plink, manuscript UKBB pipeline)."""
-    import mendeliht_tpu as m
+    import mendeliht as m
 
     n = 30
     y = rng.standard_normal(n)
@@ -228,7 +228,7 @@ def test_merge_plink_natural_order(tmp_path, rng):
     """chr2 must merge before chr10/chr11 (numeric, not lexicographic,
     ordering of the trailing chromosome token), and a destination whose name
     matches the source glob must never be ingested as an input on re-run."""
-    import mendeliht_tpu as m
+    import mendeliht as m
 
     n = 20
     y = rng.standard_normal(n)

@@ -12,8 +12,8 @@ import sys
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
-from mendeliht_tpu.parallel import multihost as mh
+import mendeliht as m
+from mendeliht.parallel import multihost as mh
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -52,11 +52,11 @@ def test_scaling_metrics():
 
 
 def test_comm_model():
-    """Analytic per-iteration byte model (tools/scaling.py -> SCALING.json)."""
+    """Analytic per-iteration byte model (tools/scaling.py)."""
     r1 = mh.comm_model(500_000, 1_000_000, B=100, n_task=1, n_snp=1)
     # single shard: no collectives, local = whole packed matrix
     assert r1["collective_bytes_per_iter"] == 0
-    from mendeliht_tpu.genotype.snparray import _ceil_to, _LANE
+    from mendeliht.genotype.snparray import _ceil_to, _LANE
     n4 = _ceil_to(-(-500_000 // 4), _LANE)
     assert r1["local_bytes_per_iter"] == pytest.approx(1_000_000 * n4)
     assert r1["predicted_efficiency"] == pytest.approx(1.0)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +115,7 @@ def test_mv_cv_checkpoint_and_progress(mv_sim, tmp_path):
 def test_mv_cv_streamed_matches(mv_sim):
     """Out-of-core mv cv through the public cv_iht == resident grid (the
     round-4 NotImplementedError gap is closed by models/mv_streamed.py)."""
-    from mendeliht_tpu.ops.streaming import HostStreamedGenotypes
+    from mendeliht.ops.streaming import HostStreamedGenotypes
 
     x, Y, *_ = mv_sim
     s = HostStreamedGenotypes.from_snparray(x, block_bytes=4096)
@@ -137,7 +137,7 @@ def test_mv_cv_task_chunking_exact(mv_sim):
     Yt = np.ascontiguousarray(Y.T)
     path = [2, 6, 10, 14]
     folds = np.random.default_rng(21).integers(1, 3, size=500)
-    from mendeliht_tpu.models.mv import cv_mv_iht
+    from mendeliht.models.mv import cv_mv_iht
     m0 = cv_mv_iht(Yt, x, path=path, q=2, folds=folds, verbose=False)
     m1 = cv_mv_iht(Yt, x, path=path, q=2, folds=folds, verbose=False,
                    task_chunk=3)

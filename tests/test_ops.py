@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import pytest
 import scipy.stats as sps
 
-from mendeliht_tpu.genotype.snparray import PackedGenotypes
-from mendeliht_tpu.ops.linalg import make_operator
-from mendeliht_tpu.ops import glm, projections as proj
+from mendeliht.genotype.snparray import PackedGenotypes
+from mendeliht.ops.linalg import make_operator
+from mendeliht.ops import glm, projections as proj
 
 
 @pytest.fixture(scope="module")
@@ -221,7 +221,7 @@ class TestProjections:
 class TestWeights:
     def test_maf_weights(self, rng):
         """(reference test/utilities_test.jl:215-229)"""
-        from mendeliht_tpu import maf_weights, maf
+        from mendeliht import maf_weights, maf
         codes = rng.choice([0, 2, 3], size=(100, 30),
                            p=[.5, .3, .2]).astype(np.uint8)
         g = PackedGenotypes.from_codes(codes)
@@ -233,7 +233,7 @@ class TestWeights:
 
 class TestStandardize:
     def test_standardize(self, rng):
-        from mendeliht_tpu import standardize
+        from mendeliht import standardize
         z = rng.standard_normal((50, 3)) * 5 + 2
         out = standardize(z.copy())
         np.testing.assert_allclose(out.mean(0), 0, atol=1e-12)

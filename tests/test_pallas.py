@@ -1,19 +1,21 @@
-"""Parity tests for the production Pallas decode-matmul kernel.
+"""Parity tests for the fused GPU score kernel (ops/score_kernel.py).
 
-The whole suite runs on CPU via `pl.pallas_call(..., interpret=True)` so the
-TPU kernel's decode algebra, round/sample mapping, hi/lo-split precision,
-padding, and rhs chunking are exercised by default (VERDICT round 1 #5: the
-production kernel previously had zero test coverage).  Reference analog: the
-reference trusts SnpArrays' tested linalg (SURVEY.md §2.10); ours is local.
+The suite runs on CPU via `pl.pallas_call(..., interpret=True)`, so the
+kernel's decode algebra, sample mapping, int8 digit-plane precision, edge
+masking and column blocking are exercised everywhere; on a GPU the same
+kernel is compared at full size by tests/test_chip.py.  Reference analog:
+the reference trusts SnpArrays' tested linalg (SURVEY.md §2.10); ours is
+local.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from mendeliht_tpu.genotype.snparray import PackedGenotypes, pack_codes
-from mendeliht_tpu.ops import decode
-from mendeliht_tpu.ops import pallas_kernels as pk
+from mendeliht.genotype.snparray import PackedGenotypes, pack_codes
+from mendeliht.ops import decode, linalg
+from mendeliht.ops import score_kernel as sk
 
 
 def _random_codes(rng, n, p, missing=True):
@@ -21,20 +23,26 @@ def _random_codes(rng, n, p, missing=True):
     return rng.choice(np.arange(4, dtype=np.uint8), size=(p, n), p=probs)
 
 
+def _small_tiles(m):
+    """Tiles small enough that a tiny problem spans several blocks."""
+    return (16, 64, 16 if 3 * m <= 16 else 32, 4)
+
+
 @pytest.mark.parametrize("want_missing", [False, True])
 @pytest.mark.parametrize("want_sq", [False, True])
 def test_xt_dots_parity_planes(rng, want_missing, want_sq):
-    """Pallas (interpret) == XLA oracle for every output plane."""
+    """Kernel (interpret) == XLA oracle for every output plane."""
     n, p, m = 200, 40, 3
     codes = _random_codes(rng, n, p, missing=want_missing)
-    packed = jnp.asarray(pack_codes(codes))          # (p, n4=128)
+    packed = jnp.asarray(pack_codes(codes))          # (p, n4=512)
     n4 = packed.shape[1]
     rhs = jnp.asarray(rng.standard_normal((4 * n4, m)), jnp.float32)
 
     A0, M0, S0 = decode.xt_dots(packed, rhs, want_missing=want_missing,
                                 want_sq=want_sq)
-    A1, M1, S1 = pk.xt_dots(packed, rhs, want_missing=want_missing,
-                            want_sq=want_sq, tp=8, tw=128, interpret=True)
+    A1, M1, S1 = sk.xt_dots(packed, rhs, want_missing=want_missing,
+                            want_sq=want_sq, tiles=_small_tiles(m),
+                            interpret=True)
     scale = max(1.0, float(np.abs(np.asarray(A0)).max()))
     assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
     if want_missing:
@@ -48,19 +56,19 @@ def test_xt_dots_parity_planes(rng, want_missing, want_sq):
         assert S1 is None
 
 
-def test_xt_dots_padding_and_chunking(rng, monkeypatch):
-    """p not a multiple of tp, nw padded up to tw, and m large enough to
-    split into several rhs chunks."""
-    monkeypatch.setattr(pk, "_FORCE_M_CHUNK", 2)     # force m-chunking (m=5)
-    n, p, m = 130, 37, 5
+def test_xt_dots_padding_and_chunking(rng):
+    """p not a multiple of 4 nor of the row tile (masked edge block), and m
+    wide enough that the digit columns span several column blocks."""
+    n, p, m = 130, 37, 15
     codes = _random_codes(rng, n, p)
     packed = jnp.asarray(pack_codes(codes))
     n4 = packed.shape[1]
     rhs = jnp.asarray(rng.standard_normal((4 * n4, m)), jnp.float32)
 
     A0, M0, _ = decode.xt_dots(packed, rhs, want_missing=True)
-    A1, M1, _ = pk.xt_dots(packed, rhs, want_missing=True,
-                           tp=16, tw=128, interpret=True)
+    A1, M1, _ = sk.xt_dots(packed, rhs, want_missing=True,
+                           tiles=(16, 64, 16, 4), interpret=True)
+    assert A1.shape == (p, m)
     scale = max(1.0, float(np.abs(np.asarray(A0)).max()))
     assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
     assert np.max(np.abs(np.asarray(M1) - np.asarray(M0))) / scale < 2e-5
@@ -79,8 +87,8 @@ def test_xt_dots_quantization_precision(rng):
         rng.standard_normal((4 * n4, 1)) * 10.0 ** rng.integers(
             -3, 4, size=(4 * n4, 1)), jnp.float32)
     A0, _, _ = decode.xt_dots(packed, rhs, want_missing=False)
-    A1, _, _ = pk.xt_dots(packed, rhs, want_missing=False,
-                          tp=8, tw=128, interpret=True)
+    A1, _, _ = sk.xt_dots(packed, rhs, want_missing=False,
+                          tiles=_small_tiles(1), interpret=True)
     scale = float(np.abs(np.asarray(A0)).max())
     assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
 
@@ -95,8 +103,9 @@ def test_xt_dots_nan_propagation(rng):
     n4 = packed.shape[1]
     rhs = np.asarray(rng.standard_normal((4 * n4, 3)), np.float32)
     rhs[7, 1] = np.nan
-    A1, M1, S1 = pk.xt_dots(packed, jnp.asarray(rhs), want_missing=True,
-                            want_sq=True, tp=8, tw=128, interpret=True)
+    A1, M1, S1 = sk.xt_dots(packed, jnp.asarray(rhs), want_missing=True,
+                            want_sq=True, tiles=_small_tiles(3),
+                            interpret=True)
     for out in (A1, M1, S1):
         arr = np.asarray(out)
         assert np.all(np.isnan(arr[:, 1]))
@@ -104,9 +113,10 @@ def test_xt_dots_nan_propagation(rng):
 
 
 def test_standardized_xtr_through_operator(rng):
-    """Full standardized X'R through PackedOp with the pallas backend
-    (interpret) == dense-matrix oracle, including missing imputation."""
-    from mendeliht_tpu.ops.linalg import PackedOp, set_kernel_backend
+    """Standardized X'R from the kernel's raw dots (interpret) plus the
+    operator's standardization algebra == dense-matrix oracle, including
+    missing imputation, and == the operator's own (XLA) xtr."""
+    from mendeliht.ops.linalg import PackedOp
 
     n, p = 100, 30
     codes = _random_codes(rng, n, p)
@@ -118,228 +128,158 @@ def test_standardized_xtr_through_operator(rng):
 
     want = np.asarray(R)[:, :n] @ g.to_dense_standardized()
 
-    # monkey-free: call the pallas path directly with interpret mode
-    A, M, _ = pk.xt_dots(g.packed, R.T, want_missing=g.has_missing,
-                         tp=8, tw=128, interpret=True)
+    A, M, _ = sk.xt_dots_words(g.words, R.T, want_missing=g.has_missing,
+                               p=g.p, tiles=_small_tiles(2), interpret=True)
     colsum = jnp.sum(R, axis=1)
     corr = (M - colsum[None, :]) if g.has_missing else -colsum[None, :]
     got = np.asarray((g.inv_sd[:, None] * (A + g.mu[:, None] * corr)).T)
-    assert np.max(np.abs(got - want)) / max(1.0, np.abs(want).max()) < 2e-5
-
-
-@pytest.mark.skipif(jnp.zeros(1).devices().pop().platform != "tpu",
-                    reason="real-chip pallas-vs-xla fit parity needs a TPU")
-def test_fit_pallas_equals_xla_on_tpu(rng):
-    import mendeliht_tpu as m
-    from mendeliht_tpu.ops.linalg import set_kernel_backend
-
-    x, _ = m.simulate_random_snparray(None, 500, 2000, rng=rng)
-    y, true_b, _ = m.simulate_random_response(x, 5, m.Normal(), rng=rng)
-    try:
-        set_kernel_backend("xla")
-        r0 = m.fit_iht(y, x, k=5, verbose=False)
-        set_kernel_backend("pallas")
-        r1 = m.fit_iht(y, x, k=5, verbose=False)
-    finally:
-        set_kernel_backend("xla")
-    assert np.flatnonzero(r0.beta).tolist() == np.flatnonzero(r1.beta).tolist()
-    assert abs(r0.logl - r1.logl) < 1e-3 * abs(r0.logl)
+    scale = max(1.0, np.abs(want).max())
+    assert np.max(np.abs(got - want)) / scale < 2e-5
+    assert np.max(np.abs(np.asarray(op.xtr(R)) - got)) / scale < 2e-5
 
 
 def test_words_lane_alignment_every_n():
-    """The canonical words layout must have a 128-lane-aligned minor dim for
-    EVERY n: a misaligned nw makes XLA relayout-copy the whole packed matrix
-    inside any gathering program (11.9 GB at n=50k x 1M — an HBM OOM on
-    v5e; see genotype/snparray.py _LANE)."""
-    from mendeliht_tpu.genotype.snparray import _ceil_to, _LANE
+    """The canonical words layout pads n4 to a multiple of 512 for EVERY n,
+    so the kernel's power-of-two reduction tile divides it and the
+    reduction loop has no tail (genotype/snparray.py _LANE)."""
+    from mendeliht.genotype.snparray import _ceil_to, _LANE
 
     for n in (1, 96, 200, 10_000, 12_345, 50_000, 120_000, 500_000):
         n4 = _ceil_to(-(-n // 4), _LANE)
-        assert n4 % 4 == 0 and (n4 // 4) % 128 == 0, n
+        assert n4 % 512 == 0 and n4 >= -(-n // 4), n
+        assert n4 % sk.pick_tiles(1, 1)[1] == 0
 
 
 def test_cv_scale_m100_chunking(rng):
     """Reference-shaped cv batch (m = q*|path| = 100 rhs columns) through the
-    interpret-mode kernel == XLA oracle — exercises the joint (tw, mc)
-    picker's large-m path end-to-end (ADVICE r2 #1: cv-scale coverage)."""
+    interpret-mode kernel with its default tile choice == XLA oracle: 300
+    digit columns padded to 320 = 5 column blocks of 64."""
     n, p, m = 130, 40, 100
     codes = _random_codes(rng, n, p)
     packed = jnp.asarray(pack_codes(codes))
     n4 = packed.shape[1]
     rhs = jnp.asarray(rng.standard_normal((4 * n4, m)), jnp.float32)
+    assert sk.pick_tiles(m, 2)[2] == 64
     A0, M0, _ = decode.xt_dots(packed, rhs, want_missing=True)
-    A1, M1, _ = pk.xt_dots(packed, rhs, want_missing=True, tp=8,
-                           interpret=True)
+    A1, M1, _ = sk.xt_dots(packed, rhs, want_missing=True, interpret=True)
     scale = max(1.0, float(np.abs(np.asarray(A0)).max()))
     assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
     assert np.max(np.abs(np.asarray(M1) - np.asarray(M0))) / scale < 2e-5
 
 
-@pytest.mark.skipif(jnp.zeros(1).devices().pop().platform != "tpu",
-                    reason="real-chip cv-scale (large-m single-chunk VMEM) "
-                           "needs a TPU")
-def test_cv_pallas_equals_xla_on_tpu(rng):
-    """Whole cross-validation grid (q=5 x path 1:20 -> m=100 kernel batch)
-    pallas == xla on the real chip: pins VMEM feasibility of the
-    single-chunk large-m tiles (ADVICE r2 #1)."""
-    import mendeliht_tpu as m
-    from mendeliht_tpu.ops.linalg import set_kernel_backend
-
-    x, _ = m.simulate_random_snparray(None, 1000, 5000, rng=rng)
-    y, true_b, _ = m.simulate_random_response(x, 8, m.Normal(), rng=rng)
-    try:
-        set_kernel_backend("xla")
-        mse0 = m.cv_iht(y, x, path=range(1, 21), q=5, verbose=False,
-                        rng=np.random.default_rng(3))
-        set_kernel_backend("pallas")
-        mse1 = m.cv_iht(y, x, path=range(1, 21), q=5, verbose=False,
-                        rng=np.random.default_rng(3))
-    finally:
-        set_kernel_backend("xla")
-    assert int(np.argmin(mse0)) == int(np.argmin(mse1))
-    np.testing.assert_allclose(np.asarray(mse0), np.asarray(mse1),
-                               rtol=5e-3)
+@pytest.mark.parametrize("m,n_out", [(1, 1), (1, 3), (2, 2), (6, 1),
+                                     (100, 1), (100, 2), (200, 3)])
+def test_pick_tiles(m, n_out):
+    """Tiles are powers of two, at least the tensor-core minimum of 16 on
+    every dot dimension, and the register-held accumulators (4 * n_out of
+    (bp4, bn) int32) take at most 128 of the 255 registers a thread has."""
+    bp4, bw, bn, warps = sk.pick_tiles(m, n_out)
+    for t in (bp4, bw, bn, warps):
+        assert t & (t - 1) == 0
+    assert min(bp4, bw, bn) >= 16
+    assert bn >= min(64, 3 * m)
+    assert 4 * n_out * bp4 * bn / (32 * warps) <= 128
 
 
-# ---------------------------------------------------------------------------
-# transposed (dual-layout) kernel: xt_dots_words_t
-# ---------------------------------------------------------------------------
-
-def _words_t_host(packed_np):
-    """Host oracle for the transposed per-SNP word view (nw, p)."""
-    p, n4 = packed_np.shape
-    wh = np.ascontiguousarray(packed_np).view(np.dtype("<i4")).reshape(p, -1)
-    return np.ascontiguousarray(wh.T)
-
-
-@pytest.mark.parametrize("want_missing", [False, True])
-@pytest.mark.parametrize("want_sq", [False, True])
-def test_xt_dots_t_parity_planes(rng, want_missing, want_sq):
-    """Transposed kernel (interpret) == XLA oracle for every output plane."""
-    n, p, m = 200, 40, 3
-    codes = _random_codes(rng, n, p, missing=want_missing)
-    packed = pack_codes(codes)                       # (p, n4=128)
-    n4 = packed.shape[1]
-    wt = jnp.asarray(_words_t_host(packed))          # (nw=32, p)
-    rhs = jnp.asarray(rng.standard_normal((4 * n4, m)), jnp.float32)
-
-    A0, M0, S0 = decode.xt_dots(jnp.asarray(packed), rhs,
-                                want_missing=want_missing, want_sq=want_sq)
-    A1, M1, S1 = pk.xt_dots_words_t(wt, rhs, want_missing=want_missing,
-                                    want_sq=want_sq, tp=8, tw=16,
-                                    interpret=True)
-    scale = max(1.0, float(np.abs(np.asarray(A0)).max()))
-    assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
-    if want_missing:
-        assert np.max(np.abs(np.asarray(M1) - np.asarray(M0))) / scale < 2e-5
-    else:
-        assert M1 is None
-    if want_sq:
-        sscale = max(1.0, float(np.abs(np.asarray(S0)).max()))
-        assert np.max(np.abs(np.asarray(S1) - np.asarray(S0))) / sscale < 2e-5
-    else:
-        assert S1 is None
+def test_tiles_must_divide_the_reduction(rng):
+    """A reduction tile that does not divide n4 is refused, not read past
+    the end of the words."""
+    codes = _random_codes(rng, 64, 8)
+    words = PackedGenotypes.from_codes(codes, sample_major=False).words
+    rhs = jnp.ones((4 * words.shape[1], 1), jnp.float32)
+    with pytest.raises(ValueError, match="multiples of the tile"):
+        sk.xt_dots_words(words, rhs, want_missing=False,
+                         tiles=(16, 384, 16, 4), interpret=True)
 
 
-def test_xt_dots_t_padding_chunking_and_nan(rng):
-    """p not a multiple of tp, nw padded up to tw, several m-chunks, and NaN
-    column re-poisoning — on the transposed kernel."""
-    n, p, m = 130, 37, 5
-    codes = _random_codes(rng, n, p)
-    packed = pack_codes(codes)
-    n4 = packed.shape[1]
-    wt = jnp.asarray(_words_t_host(packed))
-    rhs = np.asarray(rng.standard_normal((4 * n4, m)), np.float32)
-    rhs[7, 2] = np.nan
-    rhs = jnp.asarray(rhs)
-
-    A0, M0, _ = decode.xt_dots(jnp.asarray(packed), rhs, want_missing=True)
-    old = pk._FORCE_M_CHUNK
-    try:
-        pk._FORCE_M_CHUNK = 2
-        A1, M1, _ = pk.xt_dots_words_t(wt, rhs, want_missing=True,
-                                       tp=16, tw=16, interpret=True)
-    finally:
-        pk._FORCE_M_CHUNK = old
-    assert np.all(np.isnan(np.asarray(A1)[:, 2]))    # poisoned column
-    ok = [0, 1, 3, 4]
-    scale = max(1.0, float(np.nanmax(np.abs(np.asarray(A0)))))
-    assert np.max(np.abs(np.asarray(A1)[:, ok] - np.asarray(A0)[:, ok])
-                  ) / scale < 2e-5
-    assert np.max(np.abs(np.asarray(M1)[:, ok] - np.asarray(M0)[:, ok])
-                  ) / scale < 2e-5
+def test_quantize_rhs_digits(rng):
+    """Digits are int8 in [-64, 64] and reconstruct the column to 2^-20 of
+    its max; an all-zero column gets zero digits."""
+    rhs = np.asarray(rng.standard_normal((256, 3)), np.float32)
+    rhs[:, 2] = 0.0
+    digits, scale = sk.quantize_rhs(jnp.asarray(rhs))
+    assert digits.dtype == jnp.int8
+    d = np.asarray(digits).astype(np.int64)
+    assert np.abs(d).max() <= 64
+    m = rhs.shape[1]
+    recon = (16384 * d[:, :m] + 128 * d[:, m:2 * m] + d[:, 2 * m:]) * \
+        np.asarray(scale, np.float64)[None, :]
+    err = np.abs(recon - rhs).max(axis=0) / np.maximum(
+        np.abs(rhs).max(axis=0), 1e-30)
+    assert err[:2].max() <= 2.0 ** -20
+    assert not d[:, [2, 5, 8]].any()
 
 
-def test_build_words_t_matches_host(rng):
-    """Device-side chunked dual-layout builder == the host transpose oracle
-    (true columns; quad-pad columns are zero rows)."""
-    n, p = 100, 23
-    codes = _random_codes(rng, n, p)
-    packed = pack_codes(codes)
-    g = PackedGenotypes.from_codes(codes.T)          # sample-major input
-    wt_dev = pk.build_words_t(g.words, g.p, chunk_q=2)   # force chunking
-    assert wt_dev.shape == (g.words.shape[1] // 4, 4 * g.words.shape[0])
-    np.testing.assert_array_equal(np.asarray(wt_dev)[:, :p],
-                                  _words_t_host(packed))
-    assert not np.any(np.asarray(wt_dev)[:, p:])     # pad SNPs inert
-    g2 = g.with_dual_layout()
-    assert g2.words_t is not None and g2.words_t.shape == wt_dev.shape
-    assert g2.with_dual_layout() is g2               # idempotent
-    # the kernel slices pad rows off via p: parity through the dual layout
-    n4 = packed.shape[1]
-    rhs = jnp.asarray(rng.standard_normal((4 * n4, 2)), jnp.float32)
-    A0, _, _ = decode.xt_dots(jnp.asarray(packed), rhs, want_missing=True)
-    A1, _, _ = pk.xt_dots_words_t(g2.words_t, rhs, want_missing=True,
-                                  tp=8, tw=16, interpret=True, p=p)
-    scale = max(1.0, float(np.abs(np.asarray(A0)).max()))
-    assert np.max(np.abs(np.asarray(A1) - np.asarray(A0))) / scale < 2e-5
+class TestDispatch:
+    """The score path is chosen by platform: the kernel only on a GPU, the
+    XLA decode path everywhere else; forcing the kernel where it cannot run
+    is an error, never a silent interpret-mode run."""
 
+    def test_xla_on_cpu(self):
+        assert jax.default_backend() == "cpu"
+        try:
+            linalg.set_kernel_backend("auto")
+            assert not linalg.use_kernel()
+        finally:
+            linalg.set_kernel_backend("xla")
+        assert not linalg.use_kernel()
 
-@pytest.mark.skipif(jnp.zeros(1).devices().pop().platform != "tpu",
-                    reason="dual-layout kernel dispatch needs a TPU")
-def test_fit_dual_layout_equals_quad_on_tpu(rng):
-    """Single fit (m=1 score width) through the dual-layout vt kernel ==
-    quad-words kernel == XLA on the real chip."""
-    import mendeliht_tpu as m
-    from mendeliht_tpu.ops.linalg import set_kernel_backend
+    def test_forcing_kernel_off_gpu_raises(self):
+        with pytest.raises(RuntimeError, match="only on a GPU"):
+            linalg.set_kernel_backend("kernel")
+        assert not linalg.use_kernel()
 
-    x, _ = m.simulate_random_snparray(None, 500, 2000, rng=rng)
-    y, true_b, _ = m.simulate_random_response(x, 5, m.Normal(), rng=rng)
-    xd = x.with_dual_layout()
-    try:
-        set_kernel_backend("xla")
-        r0 = m.fit_iht(y, x, k=5, verbose=False)
-        set_kernel_backend("pallas")
-        r1 = m.fit_iht(y, xd, k=5, verbose=False)
-    finally:
-        set_kernel_backend("xla")
-    assert np.flatnonzero(r0.beta).tolist() == np.flatnonzero(r1.beta).tolist()
-    assert abs(r0.logl - r1.logl) < 1e-3 * abs(r0.logl)
+    def test_unknown_backend_rejected(self):
+        with pytest.raises(ValueError):
+            linalg.set_kernel_backend("pallas")
 
+    def test_kernel_on_gpu(self, rng, monkeypatch):
+        """On a GPU the operator calls the kernel on the quad words (no
+        byte-view copy); 'xla' selects the decode path there."""
+        codes = _random_codes(rng, 64, 12)
+        g = PackedGenotypes.from_codes(codes, sample_major=False)
+        op = linalg.PackedOp(g)
+        calls = []
 
-def test_make_operator_builds_dual_layout(rng):
-    """Under the pallas backend, make_operator auto-builds the transposed
-    score layout for problems within the dual-storage budget, and skips it
-    past the budget (docs/FAQ.md capacity ladder)."""
-    import os
-    from mendeliht_tpu.ops.linalg import (make_operator, set_kernel_backend,
-                                          PackedOp)
+        def spy(words, RT, **kw):
+            calls.append((words.shape, kw))
+            return decode.xt_dots(g.packed, RT, want_missing=kw[
+                "want_missing"], want_sq=kw["want_sq"])
 
-    codes = _random_codes(rng, 64, 32).T             # (n, p) sample-major
-    g = PackedGenotypes.from_codes(codes)
-    try:
-        set_kernel_backend("pallas")
-        op = make_operator(g)
-        assert isinstance(op, PackedOp)
-        assert op.geno.words_t is not None
-        assert op.geno.words_t.shape == (g.words.shape[1] // 4,
-                                         4 * g.words.shape[0])
-        os.environ["MENDELIHT_DUAL_MAX_BYTES"] = "0"
-        op2 = make_operator(PackedGenotypes.from_codes(codes))
-        assert op2.geno.words_t is None
-    finally:
-        os.environ.pop("MENDELIHT_DUAL_MAX_BYTES", None)
-        set_kernel_backend("xla")
-    # the XLA backend never builds it (off-TPU path)
-    op3 = make_operator(PackedGenotypes.from_codes(codes))
-    assert op3.geno.words_t is None
+        monkeypatch.setattr(sk, "xt_dots_words", spy)
+        monkeypatch.setattr(linalg.jax, "default_backend", lambda: "gpu")
+        try:
+            linalg.set_kernel_backend("auto")
+            assert linalg.use_kernel()
+            op.xtr(jnp.ones((1, op.n_pad), jnp.float32))
+            assert calls and calls[0][0] == g.words.shape
+            assert calls[0][1]["p"] == g.p
+            linalg.set_kernel_backend("xla")
+            assert not linalg.use_kernel()
+        finally:
+            linalg.set_kernel_backend("xla")
+
+    def test_sharded_kernel_path(self, rng, monkeypatch):
+        """The shard_map'ed operator runs the kernel on each shard's own
+        quad rows (interpret mode on 4 virtual CPU devices) and equals the
+        plain XLA operator: xtr and col_moments."""
+        import functools
+        from mendeliht.parallel.mesh import make_mesh, shard_geno_op
+
+        codes = _random_codes(rng, 100, 64)
+        g = PackedGenotypes.from_codes(codes, sample_major=False)
+        op = linalg.PackedOp(g)
+        R = jnp.asarray(rng.standard_normal((4, op.n_pad)), jnp.float32)
+        W = jnp.asarray(rng.random((4, op.n_pad)), jnp.float32)
+        WY = W * jnp.asarray(rng.standard_normal(op.n_pad), jnp.float32)
+        want = [op.xtr(R), *op.col_moments(W, WY)]
+
+        mesh = make_mesh(n_task=2, n_snp=2, devices=jax.devices()[:4])
+        op_s = shard_geno_op(op, mesh)
+        monkeypatch.setattr(sk, "xt_dots_words", functools.partial(
+            sk.xt_dots_words, interpret=True))
+        monkeypatch.setattr(linalg, "use_kernel", lambda: True)
+        got = [op_s.xtr(R), *op_s.col_moments(W, WY)]
+        for a, b in zip(got, want):
+            a, b = np.asarray(a), np.asarray(b)
+            assert np.max(np.abs(a - b)) / np.abs(b).max() < 2e-5

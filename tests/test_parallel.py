@@ -9,11 +9,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mendeliht_tpu as m
-from mendeliht_tpu.models.fit import build_fit
-from mendeliht_tpu.models.initialize import init_state
-from mendeliht_tpu.models.univariate import run_iht, _iteration
-from mendeliht_tpu.parallel.mesh import (
+import mendeliht as m
+from mendeliht.models.fit import build_fit
+from mendeliht.models.initialize import init_state
+from mendeliht.models.univariate import run_iht, _iteration
+from mendeliht.parallel.mesh import (
     make_mesh, shard_state, shard_geno_op, shard_data)
 
 
@@ -77,8 +77,8 @@ def test_sharded_full_solve_matches(sharded_problem):
 
 @pytest.mark.parametrize("n_task,n_snp", [(4, 2), (1, 8)])
 def test_shardmap_operator_matches(sharded_problem, n_task, n_snp):
-    """Explicit shard_map operator (required for the Pallas path on real
-    multi-chip hardware) must equal the plain operator exactly."""
+    """Explicit shard_map operator (required for the fused GPU kernel on a
+    multi-device mesh) must equal the plain operator exactly."""
     op, data, cfg, st = sharded_problem
     mesh = make_mesh(n_task=n_task, n_snp=n_snp)
     op_s = shard_geno_op(op, mesh, explicit=True)
@@ -152,7 +152,7 @@ class TestShardEdgeCases:
     def test_ragged_shard_boundary(self):
         """p = 603 over 8 shards: pad to 608 with inert rows; the sharded
         solve must equal the unsharded unpadded solve on the true columns."""
-        from mendeliht_tpu.parallel.mesh import pad_geno_rows
+        from mendeliht.parallel.mesh import pad_geno_rows
 
         rng = np.random.default_rng(11)
         n, p, k = 96, 603, 5
@@ -179,7 +179,7 @@ class TestShardEdgeCases:
 
     def test_support_exceeds_shard_rows(self):
         """S = 32 support slots > p_local = 16 rows per shard."""
-        from mendeliht_tpu.parallel.mesh import pad_geno_rows
+        from mendeliht.parallel.mesh import pad_geno_rows
 
         rng = np.random.default_rng(13)
         n, p, k = 160, 120, 31

@@ -1,7 +1,7 @@
 """Multivariate mesh sharding: the sharded mv solver must produce the same
 iterates as the single-device solver (round-4 VERDICT missing #1 — the
 reference's flagship workloads are multivariate, manuscript/UKBB_hyptertension,
-and its mmap design served them at any scale on one node; here the TPU answer
+and its mmap design served them at any scale on one node; here the answer
 is the (task, snp) mesh).  Runs on the 8-virtual-CPU-device mesh (conftest)."""
 
 import numpy as np
@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import mendeliht_tpu as m
-from mendeliht_tpu.models.mv import (build_mv, init_mv_state, run_mv_iht,
+import mendeliht as m
+from mendeliht.models.mv import (build_mv, init_mv_state, run_mv_iht,
                                      _iteration_mv, cv_mv_fused)
-from mendeliht_tpu.parallel.mesh import (
+from mendeliht.parallel.mesh import (
     make_mesh, shard_geno_op, shard_mv_state, shard_mv_data, pad_geno_rows)
 
 

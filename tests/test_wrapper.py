@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-import mendeliht_tpu as m
+import mendeliht as m
 
 REFDATA = "/root/reference/data"
 
@@ -57,7 +57,7 @@ class TestCrossFormat:
         result block (reference wrapper.jl:83-92 + fit.jl:194-196)."""
         m.iht(f"{REFDATA}/normal", 8, m.Normal, phenotypes=6, verbose=True)
         text = open("iht.summary.txt").read()
-        assert "mendeliht_tpu" in text                      # signature banner
+        assert "mendeliht" in text                      # signature banner
         assert "Sparsity parameter (k) = 8" in text         # parameter banner
         assert "Iteration 1: loglikelihood = " in text      # per-iteration tee
         assert "backtracks = " in text and "tol = " in text
@@ -67,7 +67,7 @@ class TestCrossFormat:
         assert "Iteration 1: loglikelihood = " in out
 
     def test_plink_equals_vcf_genotypes(self):
-        from mendeliht_tpu.utils.wrapper import parse_genotypes
+        from mendeliht.utils.wrapper import parse_genotypes
         Xp, *_ = parse_genotypes(f"{REFDATA}/normal")
         Xv, *_ = parse_genotypes(f"{REFDATA}/normal.vcf.gz")
         Gd = Xp.snparray.to_dense_standardized()
@@ -84,7 +84,7 @@ class TestCrossFormat:
         np.testing.assert_allclose(rp.beta, rv.beta, atol=2e-3)
 
     def test_bgen_close_to_plink(self):
-        from mendeliht_tpu.utils.wrapper import parse_genotypes
+        from mendeliht.utils.wrapper import parse_genotypes
         try:
             Xb, *_ = parse_genotypes(f"{REFDATA}/normal.bgen")
         except NotImplementedError as e:
@@ -147,7 +147,7 @@ class TestDelimiterSniffing:
     the separator: src/wrapper.jl:136-218, :228-247)."""
 
     def test_phenotypes_any_delimiter(self, in_tmp, rng):
-        from mendeliht_tpu.utils.wrapper import parse_phenotypes
+        from mendeliht.utils.wrapper import parse_phenotypes
 
         Y = rng.standard_normal((40, 2))
         for name, d in [("p.csv", ","), ("p.tsv", "\t"), ("p.phen", " ")]:
@@ -163,7 +163,7 @@ class TestDelimiterSniffing:
         np.testing.assert_allclose(u, Y[:, 0], atol=1e-12)
 
     def test_covariates_any_delimiter(self, in_tmp, rng):
-        from mendeliht_tpu.utils.wrapper import parse_covariates
+        from mendeliht.utils.wrapper import parse_covariates
 
         Z = np.column_stack([np.ones(40), rng.standard_normal((40, 2))])
         for name, d in [("z.csv", ","), ("z.tsv", "\t"), ("z.txt", " ")]:

@@ -24,9 +24,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import mendeliht_tpu as m
-from mendeliht_tpu.ops.linalg import set_kernel_backend
-from mendeliht_tpu.utils.standardize import standardize
+import mendeliht as m
+from mendeliht.ops.linalg import set_kernel_backend
+from mendeliht.utils.standardize import standardize
 
 set_kernel_backend("xla")
 

@@ -6,7 +6,7 @@ realistic shape (p = 131072, B = 20, S = 32), walks the optimized HLO for
 every collective instruction (all-reduce / all-gather / reduce-scatter /
 collective-permute), and reconciles their per-device payload bytes with
 `parallel.multihost.comm_model`'s prediction.  Appends a
-``model_vs_measured`` section to SCALING.json.
+``model_vs_measured`` section to build/SCALING.json (tools/scaling.py).
 
 Usage: python tools/comm_check.py
 """
@@ -77,19 +77,19 @@ def collective_bytes(hlo_text: str) -> dict:
 
 
 def main():
-    import mendeliht_tpu as m
-    from mendeliht_tpu.models.fit import build_fit
-    from mendeliht_tpu.models.initialize import init_state
-    from mendeliht_tpu.models.univariate import _iteration
-    from mendeliht_tpu.parallel.mesh import (make_mesh, shard_geno_op,
+    import mendeliht as m
+    from mendeliht.models.fit import build_fit
+    from mendeliht.models.initialize import init_state
+    from mendeliht.models.univariate import _iteration
+    from mendeliht.parallel.mesh import (make_mesh, shard_geno_op,
                                              shard_data, shard_state)
-    from mendeliht_tpu.parallel.multihost import comm_model
+    from mendeliht.parallel.multihost import comm_model
 
     assert len(jax.devices()) == 8, jax.devices()
     n, p, B, k = 2048, 131072, 20, 31          # S = k + 1 intercept = 32
     rng = np.random.default_rng(7)
     # direct packed simulation (from_codes at this p would be slow)
-    from mendeliht_tpu.genotype.snparray import (PackedGenotypes, _ceil_to,
+    from mendeliht.genotype.snparray import (PackedGenotypes, _ceil_to,
                                                  _LANE)
     n4 = _ceil_to(-(-n // 4), _LANE)
     packed = rng.integers(0, 256, size=(p, n4), dtype=np.uint8)
@@ -232,7 +232,7 @@ def main():
         "matches comm_model within 2%.")
 
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "SCALING.json")
+        os.path.abspath(__file__))), "build", "SCALING.json")
     with open(path) as f:
         scaling = json.load(f)
     # keep the artifact reviewable: drop the raw instruction dump there

@@ -1,4 +1,4 @@
-"""Commit-able multi-chip scaling evidence -> SCALING.json (VERDICT r2 #5).
+"""Multi-device scaling evidence on virtual CPU devices -> build/SCALING.json.
 
 Three sections, honest about what this single-host environment can measure:
 
@@ -15,8 +15,8 @@ Three sections, honest about what this single-host environment can measure:
   3. analytic communication model (multihost.comm_model, unit-tested) —
      per-iteration local vs collective bytes for the solver's op structure,
      evaluated at UK-Biobank scale (500k x 1M, cv batch B=100) across
-     (task, snp) mesh shapes, with the judge-measurable v5e stream rate
-     (ROOFLINE.json) as the local-bytes denominator.  This is the perf
+     (task, snp) mesh shapes, with comm_model's default rates (the
+     published H100 SXM memory and NVLink rates).  This is the perf
      prediction a real multi-chip run would be judged against: the >=80%
      @ >=2 hosts target (BASELINE.json) holds whenever the cv task batch
      is sharded over 'task' and 'snp' stays modest.
@@ -42,24 +42,23 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import numpy as np
 import jax.numpy as jnp
 
 N, P, K, ITERS = 1024, 40_000, 10, 10
+SCALING_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "build", "SCALING.json")
 B_TASKS = 4          # small cv-style batch so the psum payload is realistic
 
 
 def virtual_mesh_sweep():
-    import mendeliht_tpu as m
-    from mendeliht_tpu.parallel import multihost as mh
-    from mendeliht_tpu.parallel.mesh import make_mesh, shard_geno_op
-    from mendeliht_tpu.models.fit import build_fit
-    from mendeliht_tpu.models.initialize import init_state
-    from mendeliht_tpu.models.univariate import run_segment
+    import mendeliht as m
+    from mendeliht.parallel import multihost as mh
+    from mendeliht.parallel.mesh import make_mesh, shard_geno_op
+    from mendeliht.models.fit import build_fit
+    from mendeliht.models.initialize import init_state
+    from mendeliht.models.univariate import run_segment
 
     rng = np.random.default_rng(7)
     x, _ = m.simulate_random_snparray(None, N, P, rng=rng)
@@ -68,7 +67,7 @@ def virtual_mesh_sweep():
     rows = []
     for ns in (1, 2, 4, 8):
         mesh = make_mesh(n_task=1, n_snp=ns)
-        from mendeliht_tpu.ops.linalg import PackedOp
+        from mendeliht.ops.linalg import PackedOp
         op = shard_geno_op(PackedOp(x), mesh)
         # tol=0 -> no early convergence: every task runs all ITERS
         op2, data, cfg, k_scalar = build_fit(
@@ -101,8 +100,9 @@ def _free_port():
     return port
 
 
-def two_process_run(tmpdir="/tmp/scaling_mh"):
-    import mendeliht_tpu as m
+def two_process_run(tmpdir=os.path.join(os.path.dirname(SCALING_PATH),
+                                         "scaling_mh")):
+    import mendeliht as m
 
     os.makedirs(tmpdir, exist_ok=True)
     prefix = os.path.join(tmpdir, "g")
@@ -138,28 +138,20 @@ def two_process_run(tmpdir="/tmp/scaling_mh"):
         out[nproc] = r
         print(f"nproc={nproc}: {r['seconds']:.3f}s -> "
               f"{r['nnz_per_s']/1e9:.3f} Gnnz/s", flush=True)
-    from mendeliht_tpu.parallel import multihost as mh
+    from mendeliht.parallel import multihost as mh
     eff = mh.scaling_efficiency(out[1]["nnz_per_s"], out[2]["nnz_per_s"], 2)
     return {"runs": list(out.values()), "efficiency_2proc": eff,
             "problem": {"n": n, "p": p, "iters": ITERS}}
 
 
 def analytic_model():
-    from mendeliht_tpu.parallel import multihost as mh
+    from mendeliht.parallel import multihost as mh
 
-    stream = 420e9
-    try:
-        with open(os.path.join(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__))), "ROOFLINE.json")) as f:
-            stream = json.load(f)["measured_stream_gbytes_per_s"] * 1e9
-    except Exception:
-        pass
     rows = []
     # UK-Biobank-scale cv: 500k x 1M, B = q*|path| = 100 tasks
     for nt, ns in [(1, 2), (1, 4), (1, 8), (4, 2), (8, 2), (16, 2), (25, 4),
                    (50, 2)]:
-        r = mh.comm_model(500_000, 1_000_000, B=100, n_task=nt, n_snp=ns,
-                          stream_bytes_per_s=stream)
+        r = mh.comm_model(500_000, 1_000_000, B=100, n_task=nt, n_snp=ns)
         r.update(mesh=[nt, ns], devices=nt * ns)
         rows.append(r)
         print(f"mesh ({nt:3d},{ns}) = {nt*ns:3d} dev: "
@@ -168,8 +160,7 @@ def analytic_model():
               f"predicted eff {r['predicted_efficiency']*100:5.1f}%",
               flush=True)
     return {"assumptions": {
-                "stream_bytes_per_s": stream,
-                "link_bytes_per_s": 45e9,
+                "rates": "comm_model defaults (published H100 SXM)",
                 "problem": {"n": 500_000, "p": 1_000_000, "cv_tasks": 100},
                 "note": ("no-overlap ring-allreduce model; see "
                          "multihost.comm_model docstring")},
@@ -188,8 +179,8 @@ def main():
         "two_process": two_process_run(),
         "analytic_model": analytic_model(),
     }
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "SCALING.json")
+    path = SCALING_PATH
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     # preserve the HLO-reconciliation section maintained by tools/comm_check.py
     try:
         with open(path) as f:

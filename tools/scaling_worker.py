@@ -12,9 +12,6 @@ import time
 import jax
 
 jax.config.update("jax_platforms", "cpu")
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 import numpy as np
 import jax.numpy as jnp
@@ -24,11 +21,11 @@ def main():
     port, pid, nproc, prefix, iters, out_json = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
         int(sys.argv[5]), sys.argv[6])
-    from mendeliht_tpu.parallel import multihost as mh
-    from mendeliht_tpu.parallel.sharded_ops import ShardedPackedOp
-    from mendeliht_tpu.models.fit import build_fit
-    from mendeliht_tpu.models.initialize import init_state
-    from mendeliht_tpu.models.univariate import run_segment
+    from mendeliht.parallel import multihost as mh
+    from mendeliht.parallel.sharded_ops import ShardedPackedOp
+    from mendeliht.models.fit import build_fit
+    from mendeliht.models.initialize import init_state
+    from mendeliht.models.univariate import run_segment
 
     if nproc > 1:
         mh.initialize(coordinator_address=f"127.0.0.1:{port}",
